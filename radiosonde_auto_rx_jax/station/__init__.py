@@ -1,0 +1,14 @@
+"""Host-side control plane: config, telemetry filtering, the station loop.
+
+The reference's task manager (reference auto_rx/auto_rx.py main loop
+:760-1159) owns SDRs and spawns one OS task per frequency.  Here the unit
+of work is a *channel batch*: one wideband capture is channelized on
+device, scanned and demodulated as a batch, and the control plane only
+routes the resulting frames — no subprocess management, no SDR pooling.
+"""
+
+from radiosonde_auto_rx_jax.station.config import (
+    default_config, read_auto_rx_config)
+from radiosonde_auto_rx_jax.station.telemetry import (
+    telemetry_filter, enrich_telemetry)
+from radiosonde_auto_rx_jax.station.station import Station

@@ -48,7 +48,7 @@ def main():
         os.path.abspath(__file__))))
     # production multi-host entry (parallel/multihost.py): must succeed
     # BEFORE any backend-initializing jax call
-    from radiosonde_auto_rx_tpu.parallel import multihost
+    from radiosonde_auto_rx_jax.parallel import multihost
     multihost.initialize(coordinator_address=coordinator,
                          num_processes=nproc, process_id=pid)
     assert jax.process_count() == nproc
@@ -60,16 +60,16 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from radiosonde_auto_rx_tpu.parallel.mesh import make_mesh
+    from radiosonde_auto_rx_jax.parallel.mesh import make_mesh
 
     if mode == "station":
         run_station(jax, np, jnp, NamedSharding, P, make_mesh,
                     nproc, pid, outdir, ts)
         return
 
-    from radiosonde_auto_rx_tpu.demod.fsk import FSKConfig
-    from radiosonde_auto_rx_tpu.ops.fir import design_lowpass
-    from radiosonde_auto_rx_tpu.parallel.pipeline import make_station_step
+    from radiosonde_auto_rx_jax.demod.fsk import FSKConfig
+    from radiosonde_auto_rx_jax.ops.fir import design_lowpass
+    from radiosonde_auto_rx_jax.parallel.pipeline import make_station_step
 
     cfg = FSKConfig(fs=48000, rs=4800, m=2, p=5, nsym=50,
                     est_min=-5000, est_max=5000, tone_spacing=5000,
@@ -110,7 +110,7 @@ def main():
 def run_station(jax, np, jnp, NamedSharding, P, make_mesh,
                 nproc, pid, outdir, ts):
     import station_fixture as fx
-    from radiosonde_auto_rx_tpu.parallel.station_step import (
+    from radiosonde_auto_rx_jax.parallel.station_step import (
         EXPERT_TYPES, ShardedStationStep)
 
     mesh = make_mesh(n_ch=2 * nproc, n_t=2)      # (4, 2) global mesh

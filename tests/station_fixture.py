@@ -9,12 +9,12 @@ WXR template — exercises the full-rate confirmation), DFM (50 kHz
 resampled expert) and M10 (48.08 kHz resampled expert).
 """
 
-import datetime
-
 import numpy as np
 
-from radiosonde_auto_rx_tpu.demod.modulate import gfsk_mod
-from radiosonde_auto_rx_tpu.ops.channelizer import channel_freqs
+from radiosonde_auto_rx_jax.demod.modulate import gfsk_mod
+from radiosonde_auto_rx_jax.ops.channelizer import channel_freqs
+from radiosonde_auto_rx_jax.tools.synth import (  # noqa: F401
+    dfm_bits, m10_bits, m20_bits, rs41_bits, taper)
 
 N_CHAN = 16
 FS_WIDE = 768_000
@@ -26,68 +26,6 @@ RS41_CAP, RS41_CH = 0, 5
 M20_CAP, M20_CH = 3, 9
 DFM_CAP, DFM_CH = 1, 4    # resampled expert (48 kHz -> 50 kHz)
 M10_CAP, M10_CH = 2, 11   # resampled expert (48 kHz -> 48.08 kHz)
-
-
-def rs41_bits(rng, ts=None):
-    from radiosonde_auto_rx_tpu.models.rs41 import (
-        encode_frame, frame_to_bits, make_calibytes)
-    now = (datetime.datetime.fromtimestamp(ts, datetime.timezone.utc)
-           if ts is not None else
-           datetime.datetime.now(datetime.timezone.utc))
-    week = (now - datetime.datetime(1980, 1, 6,
-                                    tzinfo=datetime.timezone.utc)).days // 7
-    dow = (now.weekday() + 1) % 7
-    tow_ms = ((dow * 24 + now.hour) * 3600 + now.minute * 60 +
-              now.second) * 1000
-    cal = make_calibytes()
-    return np.concatenate(
-        [rng.integers(0, 2, 400)] +
-        [frame_to_bits(encode_frame(
-            frame_nb=900 + i, sonde_id="T1357911", week=week,
-            tow_ms=tow_ms + i * 1000, lat=-34.5, lon=138.6, alt=12000.0,
-            calibytes=cal, calfr=i)) for i in range(3)] +
-        [rng.integers(0, 2, 400)])
-
-
-def m20_bits(rng):
-    from radiosonde_auto_rx_tpu.models.m10 import (
-        encode_frame_m20, frame_to_raw_bits)
-    idle = np.tile(np.array([1, 0], np.uint8), 200)
-    raw = np.concatenate([frame_to_raw_bits(encode_frame_m20())
-                          for _ in range(4)])
-    return np.concatenate([idle, raw, idle])
-
-
-def dfm_bits(rng, n_cycles=2):
-    # 2 cycles decode positions; serial confirmation (and therefore the
-    # production telemetry filter) needs >= 3 cycles
-    from radiosonde_auto_rx_tpu.models.dfm import encode_flight_bits
-    return np.concatenate([
-        rng.integers(0, 2, 500).astype(np.uint8),
-        encode_flight_bits(sn=21054321, lat=47.9, lon=16.8,
-                           n_cycles=n_cycles,
-                           time_step=1.0).astype(np.uint8)])
-
-
-def m10_bits(rng):
-    from radiosonde_auto_rx_tpu.models.m10 import (
-        encode_frame_m10, frame_to_raw_bits)
-    idle = np.tile(np.concatenate([np.ones(8, np.uint8),
-                                   np.zeros(8, np.uint8)]), 40)
-    raw = np.concatenate([frame_to_raw_bits(encode_frame_m10(
-        lat=48.2, lon=16.4, alt=11000.0)) for _ in range(3)])
-    return np.concatenate([idle, raw, idle])
-
-
-def taper(sig, n=4096):
-    """Cosine ramp on the burst edges: an instantaneous IQ amplitude
-    step is nonphysical (real transmitters key up/down over many
-    symbols) and its broadband transient lands in different sparse-Welch
-    segments depending on tiling offset."""
-    w = 0.5 - 0.5 * np.cos(np.pi * np.arange(n) / n)
-    sig[:n] *= w
-    sig[-n:] *= w[::-1]
-    return sig
 
 
 def make_wide_captures(ts=None):

@@ -13,7 +13,7 @@ import time
 
 import pytest
 
-from radiosonde_auto_rx_tpu.exporters.aprs import APRSUploader
+from radiosonde_auto_rx_jax.exporters.aprs import APRSUploader
 
 
 class _FakeIgate:

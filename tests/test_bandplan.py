@@ -8,10 +8,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from radiosonde_auto_rx_tpu.station.bandplan import BandPlan, BandScheduler
-from radiosonde_auto_rx_tpu.station.config import default_config
-from radiosonde_auto_rx_tpu.station.station import Station
-from radiosonde_auto_rx_tpu.demod.modulate import gfsk_mod, add_awgn
+from radiosonde_auto_rx_jax.station.bandplan import BandPlan, BandScheduler
+from radiosonde_auto_rx_jax.station.config import default_config
+from radiosonde_auto_rx_jax.station.station import Station
+from radiosonde_auto_rx_jax.demod.modulate import gfsk_mod, add_awgn
 
 
 class _Col:
@@ -74,7 +74,7 @@ def test_scheduler_rotates_scan_and_services_decodes():
 
 
 def _rs41_block(st, chan, fs_wide, sonde_id, rng):
-    from radiosonde_auto_rx_tpu.models.rs41 import (
+    from radiosonde_auto_rx_jax.models.rs41 import (
         encode_frame, frame_to_bits, make_calibytes)
     now = datetime.datetime.now(datetime.timezone.utc)
     week = (now - datetime.datetime(1980, 1, 6,
@@ -163,7 +163,7 @@ def test_1680_station_chain_rs92ngp():
     """1680 MHz chain: wide-channel profile + L-band detector identify an
     RS92 header and route it to the RS92NGP chain (scrambled cal/PTU)
     (reference scan.py:488-547 1680 mode; decode.py:948 rs92mod --ngp)."""
-    from radiosonde_auto_rx_tpu.models.rs92 import (
+    from radiosonde_auto_rx_jax.models.rs92 import (
         encode_flight_bits, make_calibytes, make_test_ephemeris)
     ephs = make_test_ephemeris()
     cal = make_calibytes(ngp=True, freq_khz=1680000)
@@ -260,7 +260,7 @@ def test_scheduler_scan_disabled_no_actives_holds_center():
     """Scanning disabled (web control / checkpoint restore) with no
     active decoder must hold a stable center, not ZeroDivisionError
     (round-4 review)."""
-    from radiosonde_auto_rx_tpu.station.bandplan import (BandPlan,
+    from radiosonde_auto_rx_jax.station.bandplan import (BandPlan,
                                                          BandScheduler)
     plan = BandPlan(dict(min_freq=400.05, max_freq=406.0),
                     capture_rate=2_400_000)

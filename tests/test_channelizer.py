@@ -4,7 +4,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from radiosonde_auto_rx_tpu.ops.channelizer import (
+from radiosonde_auto_rx_jax.ops.channelizer import (
     channel_freqs, channelize, pfb_prototype)
 
 FS_WIDE = 2_400_000
@@ -45,11 +45,11 @@ def test_wideband_station_end_to_end():
     This is the reference's whole station loop (scan.py sonde_search ->
     detect_sonde -> decode.py chain) as one batched dataflow.
     """
-    from radiosonde_auto_rx_tpu.demod import FSKConfig, fsk_demod_stream
-    from radiosonde_auto_rx_tpu.demod.modulate import gfsk_mod
-    from radiosonde_auto_rx_tpu.detect import power_spectrum, scan_peaks
-    from radiosonde_auto_rx_tpu.detect.scanner import SondeDetector
-    from radiosonde_auto_rx_tpu.models.rs41 import (
+    from radiosonde_auto_rx_jax.demod import FSKConfig, fsk_demod_stream
+    from radiosonde_auto_rx_jax.demod.modulate import gfsk_mod
+    from radiosonde_auto_rx_jax.detect import power_spectrum, scan_peaks
+    from radiosonde_auto_rx_jax.detect.scanner import SondeDetector
+    from radiosonde_auto_rx_jax.models.rs41 import (
         RS41Decoder, encode_frame, frame_to_bits, make_calibytes)
 
     fs_ch = FS_WIDE // N_CHAN

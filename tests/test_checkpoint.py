@@ -4,9 +4,9 @@ import time
 
 import numpy as np
 
-from radiosonde_auto_rx_tpu.station.checkpoint import (load_station_state,
+from radiosonde_auto_rx_jax.station.checkpoint import (load_station_state,
                                                        save_station_state)
-from radiosonde_auto_rx_tpu.station.station import Station
+from radiosonde_auto_rx_jax.station.station import Station
 
 
 def _station():
@@ -73,8 +73,8 @@ def test_decode_after_resume(tmp_path, rng, workers):
     under both the inline frame plane and the default (pooled) one."""
     import datetime
     import jax.numpy as jnp
-    from radiosonde_auto_rx_tpu.demod.modulate import gfsk_mod, add_awgn
-    from radiosonde_auto_rx_tpu.models.rs41 import (encode_frame,
+    from radiosonde_auto_rx_jax.demod.modulate import gfsk_mod, add_awgn
+    from radiosonde_auto_rx_jax.models.rs41 import (encode_frame,
                                                     frame_to_bits,
                                                     make_calibytes)
 

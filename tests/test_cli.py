@@ -6,7 +6,7 @@ import urllib.request
 
 import numpy as np
 
-from radiosonde_auto_rx_tpu.station import main as cli
+from radiosonde_auto_rx_jax.station import main as cli
 
 
 def test_parse_args_defaults():
@@ -19,7 +19,7 @@ def test_parse_args_defaults():
 
 
 def test_build_exporters_config_gated(tmp_path):
-    from radiosonde_auto_rx_tpu.station.config import default_config
+    from radiosonde_auto_rx_jax.station.config import default_config
     cfg = default_config()
     cfg["log_directory"] = str(tmp_path)
     cfg["sondehub_enabled"] = False
@@ -43,8 +43,8 @@ def test_missing_source_exits_config():
 
 def _rs41_wideband(path, freq_off_hz, fs=2_400_000):
     """Write a cs16 wideband capture with an RS41 burst at freq_off_hz."""
-    from radiosonde_auto_rx_tpu.demod.modulate import gfsk_mod
-    from radiosonde_auto_rx_tpu.models.rs41 import (
+    from radiosonde_auto_rx_jax.demod.modulate import gfsk_mod
+    from radiosonde_auto_rx_jax.models.rs41 import (
         encode_frame, frame_to_bits, make_calibytes)
     rng = np.random.default_rng(11)
     now = datetime.datetime.now(datetime.timezone.utc)
@@ -95,9 +95,9 @@ def test_replay_scan_mode_web(tmp_path):
     raw = (rng.standard_normal(2 * 240_000) * 300).astype(np.int16)
     cap.write_bytes(raw.tobytes())
 
-    from radiosonde_auto_rx_tpu.station.config import default_config
-    from radiosonde_auto_rx_tpu.web.server import WebExporter, WebServer
-    from radiosonde_auto_rx_tpu.station.station import Station
+    from radiosonde_auto_rx_jax.station.config import default_config
+    from radiosonde_auto_rx_jax.web.server import WebExporter, WebServer
+    from radiosonde_auto_rx_jax.station.station import Station
     # drive run_station directly so we can grab the ephemeral web port
     args = cli.parse_args(["--replay", str(cap), "--block-seconds", "0.1",
                            "--log-dir", str(tmp_path / "log")])
@@ -110,7 +110,7 @@ def test_replay_scan_mode_web(tmp_path):
 
 
 def test_web_server_endpoints(tmp_path):
-    from radiosonde_auto_rx_tpu.web.server import WebExporter, WebServer
+    from radiosonde_auto_rx_jax.web.server import WebExporter, WebServer
     web = WebServer(station=None, web_exporter=WebExporter(),
                     config={"web_password": "x"}, host="127.0.0.1", port=0)
     web.start()
@@ -125,7 +125,7 @@ def test_web_server_endpoints(tmp_path):
 
 def test_emulate_mode(tmp_path):
     """--emulate replays a per-sonde log through the exporter chain."""
-    from radiosonde_auto_rx_tpu.exporters.logfile import (
+    from radiosonde_auto_rx_jax.exporters.logfile import (
         LOG_HEADER, telemetry_to_log_line)
     lines = [LOG_HEADER]
     for i in range(6):

@@ -6,10 +6,10 @@ import json
 import numpy as np
 import jax.numpy as jnp
 
-from radiosonde_auto_rx_tpu.demod import cli
-from radiosonde_auto_rx_tpu.demod.fsk import FSKConfig
-from radiosonde_auto_rx_tpu.demod import fsk_demod_stream
-from radiosonde_auto_rx_tpu.demod.modulate import gfsk_mod, add_awgn
+from radiosonde_auto_rx_jax.demod import cli
+from radiosonde_auto_rx_jax.demod.fsk import FSKConfig
+from radiosonde_auto_rx_jax.demod import fsk_demod_stream
+from radiosonde_auto_rx_jax.demod.modulate import gfsk_mod, add_awgn
 
 
 def _iq_cs16(rng, nbits=4000, fs=48000, rs=4800, spacing=5000, ebno=14.0):

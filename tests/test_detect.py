@@ -5,8 +5,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from radiosonde_auto_rx_tpu.demod.modulate import add_awgn, gfsk_mod
-from radiosonde_auto_rx_tpu.detect import (
+from radiosonde_auto_rx_jax.demod.modulate import add_awgn, gfsk_mod
+from radiosonde_auto_rx_jax.detect import (
     TEMPLATES, build_template_bank, correlate_bank, detect_types,
     power_spectrum, detect_peaks, scan_peaks)
 from tests import oracle
@@ -133,8 +133,8 @@ def test_behavior_parity_vs_dft_detect(tmp_path):
 
     # ours: the reference's IQ conditioning (IF lowpass -> FM discriminator
     # -> FM-audio lowpass, dft_detect.c:1021-1111 + :396) then correlate
-    from radiosonde_auto_rx_tpu.ops.fm import fm_discriminate
-    from radiosonde_auto_rx_tpu.ops.fir import design_lowpass, fir_filter
+    from radiosonde_auto_rx_jax.ops.fm import fm_discriminate
+    from radiosonde_auto_rx_jax.ops.fir import design_lowpass, fir_filter
     zi = jnp.asarray(iq)[None, :]
     h_if = design_lowpass(6e3 / FS, 97)        # 12 kHz IF class (lpIQ=1)
     zi = fir_filter(zi.real, h_if) + 1j * fir_filter(zi.imag, h_if)
@@ -148,7 +148,7 @@ def test_behavior_parity_vs_dft_detect(tmp_path):
 
 def test_sonde_detector_end_to_end():
     """SondeDetector: raw IQ in, typed detection out (multi channel)."""
-    from radiosonde_auto_rx_tpu.detect.scanner import SondeDetector
+    from radiosonde_auto_rx_jax.detect.scanner import SondeDetector
     rng = np.random.default_rng(3)
     spec_rs41 = next(s for s in TEMPLATES if s.name == "RS41")
     spec_dfm = next(s for s in TEMPLATES if s.name == "DFM")
@@ -176,7 +176,7 @@ def test_sonde_detector_end_to_end():
 def test_m10_vs_m20_disambiguation():
     """Detector decodes the flen/type bytes after the M10 header to split
     M10 from M20 (reference frm_M10, dft_detect.c:932-965)."""
-    from radiosonde_auto_rx_tpu.models.m10 import (
+    from radiosonde_auto_rx_jax.models.m10 import (
         encode_frame_m10, encode_frame_m20, frame_to_raw_bits)
     spec = next(s for s in TEMPLATES if s.name == "M10")
     bank, lens, specs = build_template_bank(FS)
@@ -202,7 +202,7 @@ def test_imet_tone_disambiguation():
     """The shared iMet AFSK preamble resolves to IMET4 by the 2200-Hz
     tone-power check; 2400-Hz-dominant audio (iMet-1 AB) is dropped
     (dft_detect.c:1542-1607)."""
-    from radiosonde_auto_rx_tpu.detect.correlator import _imet_subtype
+    from radiosonde_auto_rx_jax.detect.correlator import _imet_subtype
     fs = 48000
     t = np.arange(fs) / fs
     # Bell-202-ish audio: 1200 Hz mark + 2200 Hz space energy
@@ -220,7 +220,7 @@ def test_rs41_not_misdetected_as_imet():
     """Regression: RS41 GFSK payload content must not be claimed by the
     iMet templates (the short IMET4/IMET1RS headers false-matched payload
     until they were made redirect-only, dft_detect.c:1517-1518)."""
-    from radiosonde_auto_rx_tpu.detect.scanner import SondeDetector
+    from radiosonde_auto_rx_jax.detect.scanner import SondeDetector
     rng = np.random.default_rng(3)
     det = SondeDetector(48000)
     for trial in range(6):
@@ -235,9 +235,9 @@ def test_rs41_not_misdetected_as_imet():
 def test_fft_correlate_matches_direct():
     """Overlap-save FFT correlation must equal the grouped conv bit-close
     (the detector defaults to the FFT path on long streams)."""
-    from radiosonde_auto_rx_tpu.detect.correlator import (_corr_direct,
+    from radiosonde_auto_rx_jax.detect.correlator import (_corr_direct,
                                                           _corr_fft)
-    from radiosonde_auto_rx_tpu.detect.templates import build_template_bank
+    from radiosonde_auto_rx_jax.detect.templates import build_template_bank
     bank, lens, _ = build_template_bank(48000)
     bj = jnp.asarray(bank)
     rng = np.random.default_rng(11)
@@ -250,9 +250,9 @@ def test_fft_correlate_matches_direct():
 
 
 def test_corr_toeplitz_matches_direct():
-    """Blocked-Toeplitz correlation (TPU default) == direct grouped conv,
+    """Blocked-Toeplitz correlation (RSX_DETECT_CORR=toeplitz) == direct grouped conv,
     including nvalid not a multiple of the block size."""
-    from radiosonde_auto_rx_tpu.detect.correlator import (_corr_direct,
+    from radiosonde_auto_rx_jax.detect.correlator import (_corr_direct,
                                                           _corr_toeplitz)
     rng = np.random.default_rng(1)
     bank = jnp.asarray(rng.standard_normal((8, 800)).astype(np.float32))
@@ -265,12 +265,12 @@ def test_corr_toeplitz_matches_direct():
 
 
 def test_detection_bf16_streams(monkeypatch):
-    """The TPU default runs the detector on bf16 FM streams — force the
-    dtype on CPU and check a clean burst is still detected with a score
+    """RSX_DETECT_DTYPE=bfloat16 runs the detector on bf16 FM streams —
+    force the dtype and check a clean burst is still detected with a score
     close to the f32 path."""
     monkeypatch.setenv("RSX_DETECT_DTYPE", "bfloat16")
-    from radiosonde_auto_rx_tpu.detect.scanner import SondeDetector
-    from radiosonde_auto_rx_tpu.demod.modulate import gfsk_mod, add_awgn
+    from radiosonde_auto_rx_jax.detect.scanner import SondeDetector
+    from radiosonde_auto_rx_jax.demod.modulate import gfsk_mod, add_awgn
     spec = next(s for s in TEMPLATES if s.name == "RS41")
     fs = 48000
     rng = np.random.default_rng(3)
@@ -293,7 +293,7 @@ def test_detection_bf16_streams(monkeypatch):
 def test_welch_hop_modes_agree():
     """Non-overlapping Welch (hop=nfft, the station-scan default) must
     agree with 50%-overlap Welch on the noise floor and peak location."""
-    from radiosonde_auto_rx_tpu.detect.psd import _welch
+    from radiosonde_auto_rx_jax.detect.psd import _welch
     rng = np.random.default_rng(0)
     fs, T = 480000, 480000
     t = np.arange(T) / fs
@@ -319,9 +319,9 @@ def test_blocknorm_scan_matches_monolithic():
     form bit-for-bit (same einsum reductions, same block norms, same
     first-occurrence argmax tie-breaking, same exact rescore)."""
     import jax.numpy as jnp
-    from radiosonde_auto_rx_tpu.detect.correlator import (
+    from radiosonde_auto_rx_jax.detect.correlator import (
         _correlate_peaks_blocknorm, _correlate_peaks_blocknorm_scan)
-    from radiosonde_auto_rx_tpu.detect.templates import (
+    from radiosonde_auto_rx_jax.detect.templates import (
         build_template_bank, TEMPLATES)
     rng = np.random.default_rng(42)
     specs = [s for s in TEMPLATES if s.lp_iq == 1]

@@ -4,7 +4,7 @@ bit-exact telemetry parity with the reference dfm09mod binary."""
 import numpy as np
 import pytest
 
-from radiosonde_auto_rx_tpu.models.dfm import (
+from radiosonde_auto_rx_jax.models.dfm import (
     CODEWORDS, DFMDecoder, HEADER, RAW_HEADER, bits2val, deinterleave,
     encode_flight_bits, encode_frame, fl24, fl24_encode, hamming_decode,
     hamming_encode, interleave, manchester_decode, manchester_encode,

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from radiosonde_auto_rx_tpu.models.dropsonde import (
+from radiosonde_auto_rx_jax.models.dropsonde import (
     DropsondeDecoder, chksum16, crc16, encode_frame_rd94, f32_rd94,
     f32_rd94_encode, frames_to_raw_bits)
 from tests import oracle

@@ -10,8 +10,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from radiosonde_auto_rx_tpu.demod import FSKConfig, fsk_demod_stream
-from radiosonde_auto_rx_tpu.demod.modulate import gfsk_mod, add_awgn
+from radiosonde_auto_rx_jax.demod import FSKConfig, fsk_demod_stream
+from radiosonde_auto_rx_jax.demod.modulate import gfsk_mod, add_awgn
 
 
 def _run_chain(tx_bits, fs, rs, cfg, ebno_db=14.0, spacing=5000):
@@ -24,7 +24,7 @@ def _run_chain(tx_bits, fs, rs, cfg, ebno_db=14.0, spacing=5000):
 
 def test_iq_to_dfm_telemetry():
     """DFM: 50 kHz IQ at 2500 Bd raw Manchester (decode.py:1036-1073)."""
-    from radiosonde_auto_rx_tpu.models.dfm import DFMDecoder, \
+    from radiosonde_auto_rx_jax.models.dfm import DFMDecoder, \
         encode_flight_bits
     raw = encode_flight_bits(sn=21012345, lat=51.3, lon=6.88)
     cfg = FSKConfig(fs=50000, rs=2500, m=2, p=10, nsym=125,
@@ -38,7 +38,7 @@ def test_iq_to_dfm_telemetry():
 
 def test_iq_to_rs41_telemetry():
     """RS41: 48 kHz IQ at 4800 Bd (decode.py:869-913)."""
-    from radiosonde_auto_rx_tpu.models.rs41 import (
+    from radiosonde_auto_rx_jax.models.rs41 import (
         RS41Decoder, encode_frame, frame_to_bits, make_calibytes)
     cal = make_calibytes()
     frames = [encode_frame(frame_nb=100 + i, sonde_id="S1234567",
@@ -61,7 +61,7 @@ def test_iq_to_rs41_telemetry():
 def test_iq_to_lms6_telemetry():
     """LMS6: 48 kHz IQ at 4800 Bd raw (decode.py:1173-1208); conv->
     Viterbi -> RS -> frame.  First block is demod warm-up."""
-    from radiosonde_auto_rx_tpu.models.lms6 import (
+    from radiosonde_auto_rx_jax.models.lms6 import (
         LMS6Decoder, blocks_to_raw_bits, encode_block, encode_frame)
     frames = [encode_frame(frnr=100 + i, tow_ms=210600500 + i * 1000,
                            fill_seed=i) for i in range(3)]
@@ -76,7 +76,7 @@ def test_iq_to_lms6_telemetry():
 
 def test_iq_to_m10_telemetry():
     """M10: 48.08 kHz IQ at 9616 Bd raw pairs (decode.py:1089-1130)."""
-    from radiosonde_auto_rx_tpu.models.m10 import (
+    from radiosonde_auto_rx_jax.models.m10 import (
         M10Decoder, encode_frame_m10, frame_to_raw_bits)
     frame = encode_frame_m10(lat=48.2, lon=16.4, alt=12345.6)
     raw = np.concatenate([frame_to_raw_bits(frame),
@@ -94,7 +94,7 @@ def test_iq_to_m10_telemetry():
 def test_iq_to_rs92_telemetry():
     """RS92: 48 kHz IQ at 4800 Bd raw Manchester (decode.py RS92 FM chain);
     raw-pseudorange GPS navigation against a synthetic constellation."""
-    from radiosonde_auto_rx_tpu.models.rs92 import (
+    from radiosonde_auto_rx_jax.models.rs92 import (
         RS92Decoder, encode_flight_bits, make_test_ephemeris)
     ephs = make_test_ephemeris()
     raw = encode_flight_bits(n_frames=2, ephs=ephs, lat=-34.95, lon=138.52,

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from radiosonde_auto_rx_tpu.ecc.gf import GF256_RS, GF256_CCSDS, GF64_BCH
-from radiosonde_auto_rx_tpu.ecc.rs import RS255_231, RS255_223_CCSDS
-from radiosonde_auto_rx_tpu.ecc.crc import crc16_ccitt
+from radiosonde_auto_rx_jax.ecc.gf import GF256_RS, GF256_CCSDS, GF64_BCH
+from radiosonde_auto_rx_jax.ecc.rs import RS255_231, RS255_223_CCSDS
+from radiosonde_auto_rx_jax.ecc.crc import crc16_ccitt
 
 
 def test_gf256_tables():
@@ -122,8 +122,8 @@ def test_native_viterbi_matches_numpy():
     """The C ACS loop must make identical decisions to the numpy
     reference implementation (same trellis, metric differs only by a
     per-step constant)."""
-    from radiosonde_auto_rx_tpu import native
-    from radiosonde_auto_rx_tpu.ecc import viterbi as V
+    from radiosonde_auto_rx_jax import native
+    from radiosonde_auto_rx_jax.ecc import viterbi as V
     if not native.available():
         pytest.skip("native runtime not built")
     rng = np.random.default_rng(5)
@@ -143,7 +143,7 @@ def test_native_viterbi_matches_numpy():
 def test_rs_encode_matches_long_division():
     """Vectorized basis-remainder encode == straight polynomial division
     (checked via zero syndromes and a known-answer round trip)."""
-    from radiosonde_auto_rx_tpu.ecc.rs import RS255_231, RS255_223_CCSDS
+    from radiosonde_auto_rx_jax.ecc.rs import RS255_231, RS255_223_CCSDS
     rng = np.random.default_rng(6)
     for code in (RS255_231, RS255_223_CCSDS):
         msg = rng.integers(0, 256, (4, code.k))

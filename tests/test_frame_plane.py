@@ -5,13 +5,13 @@ import datetime
 import numpy as np
 import pytest
 
-from radiosonde_auto_rx_tpu.station.frame_plane import FramePlane
-from radiosonde_auto_rx_tpu.station.station import Station
+from radiosonde_auto_rx_jax.station.frame_plane import FramePlane
+from radiosonde_auto_rx_jax.station.station import Station
 
 
 def _rs41_capture(st, rng, chan=5, sonde_id="T1357911"):
-    from radiosonde_auto_rx_tpu.demod.modulate import gfsk_mod
-    from radiosonde_auto_rx_tpu.models.rs41 import (encode_frame,
+    from radiosonde_auto_rx_jax.demod.modulate import gfsk_mod
+    from radiosonde_auto_rx_jax.models.rs41 import (encode_frame,
                                                     frame_to_bits,
                                                     make_calibytes)
     now = datetime.datetime.now(datetime.timezone.utc)
@@ -43,7 +43,7 @@ def _stable(telems):
 
 def test_inline_plane_decodes():
     """workers=0 plane: decode/gather inline, decoder state persists."""
-    from radiosonde_auto_rx_tpu.models.dfm import (DFMDecoder,
+    from radiosonde_auto_rx_jax.models.dfm import (DFMDecoder,
                                                    encode_flight_bits)
     plane = FramePlane(workers=0)
     bits = encode_flight_bits(n_cycles=3)
@@ -85,7 +85,7 @@ def test_pooled_station_matches_inline():
 def test_pooled_worker_error_isolated():
     """A decoder blowing up inside a worker yields an empty result for
     that ticket; other tickets and the plane itself survive."""
-    from radiosonde_auto_rx_tpu.models.dfm import encode_flight_bits
+    from radiosonde_auto_rx_jax.models.dfm import encode_flight_bits
     plane = FramePlane(workers=2)
     try:
         bits = encode_flight_bits(n_cycles=3)

@@ -3,12 +3,12 @@
 import numpy as np
 import jax.numpy as jnp
 
-from radiosonde_auto_rx_tpu.demod.fsk import (FSKConfig, fsk_init_state,
+from radiosonde_auto_rx_jax.demod.fsk import (FSKConfig, fsk_init_state,
                                               fsk_num_blocks,
                                               fsk_num_blocks_buffered,
                                               _fsk_demod_scan,
                                               _fsk_demod_scan_buffered)
-from radiosonde_auto_rx_tpu.demod.modulate import add_awgn, gfsk_mod
+from radiosonde_auto_rx_jax.demod.modulate import add_awgn, gfsk_mod
 
 
 def _cfg(nsym=50):
@@ -127,8 +127,8 @@ def test_wrap_frame_loss_rate_under_sustained_ppm():
     one per symbol of drift).  Counted end-to-end: RS41 frames through
     demod + decode at high SNR, ≥95% delivered."""
     import dataclasses
-    from radiosonde_auto_rx_tpu.tools import per_harness as ph
-    from radiosonde_auto_rx_tpu.demod import fsk_demod_stream
+    from radiosonde_auto_rx_jax.tools import per_harness as ph
+    from radiosonde_auto_rx_jax.demod import fsk_demod_stream
     rng = np.random.default_rng(7)
     case = ph.CASES["RS41"](60, rng, None)
     casep = dataclasses.replace(case, ppm=75.0)
@@ -144,7 +144,7 @@ def test_slack_wrap_stays_on_offset_grid():
     off-grid wrap leaves the buffered scan's masked window select
     matching nothing, silently demodulating zeros (round-4 review:
     2*ts is off-grid whenever ts is odd and ts//2 > 2)."""
-    from radiosonde_auto_rx_tpu.demod.fsk import _slack_wrap
+    from radiosonde_auto_rx_jax.demod.fsk import _slack_wrap
     for ts in range(2, 64):
         half = max(1, ts // 2)
         off_max = (8 * ts // half) * half

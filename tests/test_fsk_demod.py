@@ -4,9 +4,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from radiosonde_auto_rx_tpu.demod.fsk import (
+from radiosonde_auto_rx_jax.demod.fsk import (
     FSKConfig, fsk_demod_stream, fsk_init_state)
-from radiosonde_auto_rx_tpu.demod.modulate import fsk_mod, gfsk_mod, add_awgn
+from radiosonde_auto_rx_jax.demod.modulate import fsk_mod, gfsk_mod, add_awgn
 
 
 def _ber(tx_bits, rx_bits, max_shift=16):

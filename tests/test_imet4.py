@@ -4,7 +4,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from radiosonde_auto_rx_tpu.models.imet4 import (
+from radiosonde_auto_rx_jax.models.imet4 import (
     IMet4Decoder, afsk_demod_config, afsk_modulate, bits_8n1_decode,
     bytes_8n1_encode, crc16_1d0f, encode_eptu_packet, encode_frame_bits,
     encode_gps_packet)
@@ -49,7 +49,7 @@ def test_bad_crc_rejected():
 
 def test_afsk_audio_demod():
     """Bell-202 audio -> FSK engine (real input) -> bits -> telemetry."""
-    from radiosonde_auto_rx_tpu.demod.fsk import fsk_demod_stream
+    from radiosonde_auto_rx_jax.demod.fsk import fsk_demod_stream
     rng = np.random.default_rng(2)
     frame = encode_frame_bits([encode_gps_packet(), encode_eptu_packet()],
                               sync_bits=80)

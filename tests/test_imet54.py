@@ -4,7 +4,7 @@ and JSON parity vs the reference imet54mod binary."""
 import numpy as np
 import pytest
 
-from radiosonde_auto_rx_tpu.models.imet54 import (
+from radiosonde_auto_rx_jax.models.imet54 import (
     HAM_LUT, HEADER, IMet54Decoder, crc32ok, crc32_fix, de8n1, deinter64,
     en8n1, encode_frame, encode_raw_bits, hamming_decode_byte)
 from tests import oracle

@@ -2,7 +2,7 @@
 
 The reference regression-tests its *production* rtl_fm chain without
 hardware by building a hacked stdin-reading rtl_fm (reference
-auto_rx/test/README.md:13-22, test_demod.py:426-441).  The TPU analogue:
+auto_rx/test/README.md:13-22, test_demod.py:426-441).  The analogue here:
 stub ``rtl_fm`` / ``rtl_sdr`` executables that synthesize an RS41 burst
 at the commanded capture rate, so the real subprocess capture path —
 command build (sources/sdr_wrappers.py) → Popen → pumped pipe → cs16
@@ -20,8 +20,8 @@ import textwrap
 import numpy as np
 import pytest
 
-from radiosonde_auto_rx_tpu.station import Station
-from radiosonde_auto_rx_tpu.station.main import BlockSource
+from radiosonde_auto_rx_jax.station import Station
+from radiosonde_auto_rx_jax.station.main import BlockSource
 
 FS_WIDE = 480_000
 N_CHAN = 10
@@ -57,8 +57,8 @@ def _station():
 def _rs41_burst(offset_hz):
     """~1.8 s RS41 GFSK burst at ``offset_hz`` from capture center,
     complex64 at FS_WIDE (same fixture recipe as test_station_full_cycle)."""
-    from radiosonde_auto_rx_tpu.demod.modulate import gfsk_mod
-    from radiosonde_auto_rx_tpu.models.rs41 import (
+    from radiosonde_auto_rx_jax.demod.modulate import gfsk_mod
+    from radiosonde_auto_rx_jax.models.rs41 import (
         encode_frame, frame_to_bits, make_calibytes)
 
     rng = np.random.default_rng(11)
@@ -138,7 +138,7 @@ def _install_stubs(tmp_path, burst_path, monkeypatch):
 
 
 def test_sdr_health_check_with_stub(tmp_path, monkeypatch):
-    from radiosonde_auto_rx_tpu.sources.sdr_wrappers import test_sdr
+    from radiosonde_auto_rx_jax.sources.sdr_wrappers import test_sdr
     burst = tmp_path / "burst.npy"
     np.save(burst, np.zeros(8, np.complex64))
     _install_stubs(tmp_path, burst, monkeypatch)
@@ -185,8 +185,8 @@ def test_subprocess_capture_to_telemetry(tmp_path, monkeypatch):
 
 
 def _rs41_burst_id(offset_hz, sonde_id, seed):
-    from radiosonde_auto_rx_tpu.demod.modulate import gfsk_mod
-    from radiosonde_auto_rx_tpu.models.rs41 import (
+    from radiosonde_auto_rx_jax.demod.modulate import gfsk_mod
+    from radiosonde_auto_rx_jax.models.rs41 import (
         encode_frame, frame_to_bits, make_calibytes)
     rng = np.random.default_rng(seed)
     now = datetime.datetime.now(datetime.timezone.utc)
@@ -212,7 +212,7 @@ def test_two_sources_concurrent_no_hop_loss(tmp_path, monkeypatch):
     sondes simultaneously (reference runs N SDRs at once,
     auto_rx.py:101-128); with sources == segments the scheduler never
     hops, so neither sonde loses a single block to the other's band."""
-    from radiosonde_auto_rx_tpu.station.bandplan import (
+    from radiosonde_auto_rx_jax.station.bandplan import (
         BandPlan, BandScheduler, partition_segments)
 
     cfg = {"capture_rate": FS_WIDE, "num_channels": N_CHAN,
@@ -273,7 +273,7 @@ def test_two_sources_concurrent_no_hop_loss(tmp_path, monkeypatch):
 def test_partition_segments_lband_isolated():
     """More segments than sources: time-slicing only within a source's
     subset; an L-band range gets its own dedicated source."""
-    from radiosonde_auto_rx_tpu.station.bandplan import (
+    from radiosonde_auto_rx_jax.station.bandplan import (
         BandPlan, partition_segments)
     cfg = {"capture_rate": FS_WIDE, "min_freq": 400.1, "max_freq": 403.0,
            "min_freq2": 1676.0, "max_freq2": 1684.0}

@@ -4,8 +4,8 @@ and JSON parity vs the reference lms6Xmod binary."""
 import numpy as np
 import pytest
 
-from radiosonde_auto_rx_tpu.ecc.viterbi import conv_encode, viterbi_decode
-from radiosonde_auto_rx_tpu.models.lms6 import (
+from radiosonde_auto_rx_jax.ecc.viterbi import conv_encode, viterbi_decode
+from radiosonde_auto_rx_jax.models.lms6 import (
     BLK_SYNCBITS, LMS6Decoder, RAW_HEADER, blocks_to_raw_bits, crc16_0,
     encode_block, encode_frame)
 from tests import oracle

@@ -4,7 +4,7 @@ JSON parity vs the reference m10mod/m20mod binaries."""
 import numpy as np
 import pytest
 
-from radiosonde_auto_rx_tpu.models.m10 import (
+from radiosonde_auto_rx_jax.models.m10 import (
     M10Decoder, M20Decoder, RAW_HEADER, bits_to_bytes_be, bytes_to_bits_be,
     check_m10, diff_decode, diff_encode, encode_frame_m10, encode_frame_m20,
     frame_to_raw_bits, gps2date, pairs_to_bits)

@@ -4,8 +4,8 @@ and JSON parity vs the reference meisei100mod binary."""
 import numpy as np
 import pytest
 
-from radiosonde_auto_rx_tpu.ecc.bch import bch_decode, bch_encode, N, K
-from radiosonde_auto_rx_tpu.models.meisei import (
+from radiosonde_auto_rx_jax.ecc.bch import bch_decode, bch_encode, N, K
+from radiosonde_auto_rx_jax.models.meisei import (
     HEADER_049DCE, MeiseiDecoder, RAW_HEADER, biphase_s_decode,
     biphase_s_encode, block_decode, block_encode, encode_subframes_ims100,
     frames_to_raw_bits, get_w16)

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from radiosonde_auto_rx_tpu.models.mk2lms import (
+from radiosonde_auto_rx_jax.models.mk2lms import (
     MK2LMSDecoder, encode_flight_bits, encode_frame_54, encode_frame_4d,
     frame_to_raw_bits)
 from tests import oracle

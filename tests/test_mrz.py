@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from radiosonde_auto_rx_tpu.models.mrz import (
+from radiosonde_auto_rx_jax.models.mrz import (
     MRZDecoder, crc16_rev, encode_flight_bits, encode_frame,
     frame_to_raw_bits)
 from tests import oracle

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from radiosonde_auto_rx_tpu.models.mts01 import (
+from radiosonde_auto_rx_jax.models.mts01 import (
     MTS01Decoder, crc16_re, encode_frame, frame_to_bits)
 from tests import oracle
 

@@ -55,10 +55,10 @@ def test_two_process_mesh_matches_single_process(tmp_path):
     import jax
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
-    from radiosonde_auto_rx_tpu.demod.fsk import FSKConfig
-    from radiosonde_auto_rx_tpu.ops.fir import design_lowpass
-    from radiosonde_auto_rx_tpu.parallel.mesh import make_mesh
-    from radiosonde_auto_rx_tpu.parallel.pipeline import make_station_step
+    from radiosonde_auto_rx_jax.demod.fsk import FSKConfig
+    from radiosonde_auto_rx_jax.ops.fir import design_lowpass
+    from radiosonde_auto_rx_jax.parallel.mesh import make_mesh
+    from radiosonde_auto_rx_jax.parallel.pipeline import make_station_step
 
     cfg = FSKConfig(fs=48000, rs=4800, m=2, p=5, nsym=50,
                     est_min=-5000, est_max=5000, tone_spacing=5000,
@@ -123,8 +123,8 @@ def test_two_process_full_station_matches_single_process(tmp_path):
     import jax
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
-    from radiosonde_auto_rx_tpu.parallel.mesh import make_mesh
-    from radiosonde_auto_rx_tpu.parallel.station_step import (
+    from radiosonde_auto_rx_jax.parallel.mesh import make_mesh
+    from radiosonde_auto_rx_jax.parallel.station_step import (
         EXPERT_TYPES, ShardedStationStep)
     import station_fixture as fx
 
@@ -181,7 +181,7 @@ def test_two_process_full_station_matches_single_process(tmp_path):
 
     # ---- end-to-end: the RS41 telemetry decodes from the multi-process
     # routed bits exactly as from the single-process run
-    from radiosonde_auto_rx_tpu.models import get_model
+    from radiosonde_auto_rx_jax.models import get_model
     e = EXPERT_TYPES.index("RS41")
     srow = int(np.flatnonzero(np.asarray(merged["ids"][e]) ==
                               fx.RS41_CAP * fx.N_CHAN + fx.RS41_CH)[0])

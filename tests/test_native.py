@@ -7,9 +7,9 @@ import threading
 import numpy as np
 import pytest
 
-from radiosonde_auto_rx_tpu import native
-from radiosonde_auto_rx_tpu.demod import framing
-from radiosonde_auto_rx_tpu.sources import iq_source
+from radiosonde_auto_rx_jax import native
+from radiosonde_auto_rx_jax.demod import framing
+from radiosonde_auto_rx_jax.sources import iq_source
 
 pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="native runtime not built")

@@ -23,10 +23,10 @@ import sys
 import numpy as np
 import pytest
 
-from radiosonde_auto_rx_tpu.demod.modulate import gfsk_mod
-from radiosonde_auto_rx_tpu.ops.channelizer import (
+from radiosonde_auto_rx_jax.demod.modulate import gfsk_mod
+from radiosonde_auto_rx_jax.ops.channelizer import (
     channel_freqs, channelize, extract_channels)
-from radiosonde_auto_rx_tpu.station.station import Station
+from radiosonde_auto_rx_jax.station.station import Station
 
 from station_fixture import dfm_bits, rs41_bits, taper
 

@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from radiosonde_auto_rx_tpu.ops import (
+from radiosonde_auto_rx_jax.ops import (
     design_lowpass, fir_filter, fir_filter_streaming, decimate,
     freq_shift, fm_discriminate,
 )
@@ -89,9 +89,9 @@ def test_fm_discriminator_tone():
 
 
 def test_fir_filter_block_matches_fir_filter(rng):
-    """Blocked-Toeplitz FIR (MXU-dense path) == plain conv FIR, including
+    """Blocked-Toeplitz FIR (matmul-dense path) == plain conv FIR, including
     filter banks, odd lengths, and T < block."""
-    from radiosonde_auto_rx_tpu.ops.fir import fir_filter_block
+    from radiosonde_auto_rx_jax.ops.fir import fir_filter_block
 
     x = jnp.asarray(rng.standard_normal((4, 1000)).astype(np.float32))
     hs = jnp.stack([jnp.asarray(design_lowpass(c, 97))

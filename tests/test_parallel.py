@@ -7,12 +7,12 @@ import jax.numpy as jnp
 from jax.sharding import NamedSharding, PartitionSpec as P
 import pytest
 
-from radiosonde_auto_rx_tpu.demod.fsk import FSKConfig, fsk_demod_stream
-from radiosonde_auto_rx_tpu.demod.modulate import gfsk_mod, add_awgn
-from radiosonde_auto_rx_tpu.ops.fir import design_lowpass, _conv_valid
-from radiosonde_auto_rx_tpu.parallel.mesh import (make_mesh,
+from radiosonde_auto_rx_jax.demod.fsk import FSKConfig, fsk_demod_stream
+from radiosonde_auto_rx_jax.demod.modulate import gfsk_mod, add_awgn
+from radiosonde_auto_rx_jax.ops.fir import design_lowpass, _conv_valid
+from radiosonde_auto_rx_jax.parallel.mesh import (make_mesh,
                                                   stream_sharding)
-from radiosonde_auto_rx_tpu.parallel.pipeline import (make_station_step,
+from radiosonde_auto_rx_jax.parallel.pipeline import (make_station_step,
                                                       sharded_fir_filter,
                                                       sharded_fsk_demod)
 
@@ -119,8 +119,8 @@ def test_station_step_full_mesh(rng):
 
 def test_halo_exchange_contents():
     """halo_exchange_left moves exactly the neighbor's tail."""
-    from radiosonde_auto_rx_tpu.parallel.pipeline import shard_map
-    from radiosonde_auto_rx_tpu.parallel.halo import halo_exchange_left
+    from radiosonde_auto_rx_jax.parallel.pipeline import shard_map
+    from radiosonde_auto_rx_jax.parallel.halo import halo_exchange_left
     mesh = make_mesh(n_ch=1, n_t=8)
     t_local, halo = 16, 4
     x = jnp.arange(8 * t_local, dtype=jnp.float32)[None, :]
@@ -144,7 +144,7 @@ def test_halo_exchange_contents():
 
 def test_multihost_helpers_single_process():
     """multihost helpers degrade cleanly in single-process mode."""
-    from radiosonde_auto_rx_tpu.parallel import multihost
+    from radiosonde_auto_rx_jax.parallel import multihost
     multihost.initialize()            # no coordinator: no-op
     mesh = multihost.global_mesh(n_t=2)
     assert mesh.shape["t"] == 2 and mesh.shape["ch"] * 2 == len(jax.devices())

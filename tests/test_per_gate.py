@@ -18,74 +18,25 @@ healthy chain (recorded PER typically <= 0.15 there) false-fails with
 probability < 1e-3 per type.
 """
 
-import csv
-import os
-
-import numpy as np
 import pytest
 
-DOCS = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "docs")
-# round-5 CSV adds per-type ±20 kHz off-grid points (f_off column,
-# tools/per_offgrid.py); fall back to the round-3 sweep
-CSV = os.path.join(DOCS, "per_r5.csv")
-if not os.path.exists(CSV):
-    CSV = os.path.join(DOCS, "per_r3.csv")
+from radiosonde_auto_rx_jax.tools.per_harness import (
+    gate_limit, gate_point, recorded_rows, row_f_off)
 
-
-def _rows():
-    with open(CSV) as f:
-        return [r for r in csv.DictReader(f) if r["chain"] == "tpu"]
-
-
-def _f_off(row) -> float:
-    try:
-        return float(row.get("f_off") or 0.0)
-    except ValueError:
-        return 0.0
-
-
-def _curve(rows, sonde_type):
-    g = sorted(((float(r["ebno_db"]), float(r["per"]))
-                for r in rows
-                if r["type"] == sonde_type and _f_off(r) == 0.0))
-    return g
-
-
-def _cliff(curve):
-    for (e0, p0), (e1, p1) in zip(curve, curve[1:]):
-        if p0 >= 0.5 >= p1:
-            if p0 == p1:
-                return e0
-            return e0 + (p0 - 0.5) / (p0 - p1) * (e1 - e0)
-    return None
-
-
-ALL_ROWS = _rows() if os.path.exists(CSV) else []
+ALL_ROWS = recorded_rows()
 TYPES = sorted({r["type"] for r in ALL_ROWS})
-OFFGRID = sorted({(r["type"], _f_off(r), float(r["ebno_db"]),
+OFFGRID = sorted({(r["type"], row_f_off(r), float(r["ebno_db"]),
                    float(r["per"]))
-                  for r in ALL_ROWS if _f_off(r) != 0.0})
+                  for r in ALL_ROWS if row_f_off(r) != 0.0})
 
 
 @pytest.mark.parametrize("sonde_type", TYPES)
 def test_per_cliff_gate(sonde_type):
-    from radiosonde_auto_rx_tpu.tools.per_harness import run_point
-    curve = _curve(ALL_ROWS, sonde_type)
-    grid = [e for e, _ in curve]
-    cliff = _cliff(curve)
-    if cliff is None:
-        # cliff below the measured grid (LMS6's soft Viterbi): gate at
-        # the grid floor against the recorded PER there
-        e_gate = grid[0]
-    else:
-        # first grid point >= cliff + 0.5 dB
-        e_gate = min((e for e in grid if e >= cliff + 0.5),
-                     default=grid[-1])
-    p_rec = dict(curve)[e_gate]
+    from radiosonde_auto_rx_jax.tools.per_harness import run_point
+    e_gate, p_rec, cliff = gate_point(ALL_ROWS, sonde_type)
     rows = run_point(sonde_type, e_gate, n_frames=100, seed=123)
     p_meas = rows[0]["per"]
-    limit = max(p_rec + 0.20, 0.35)
+    limit = gate_limit(p_rec)
     assert p_meas <= limit, (
         f"{sonde_type}: PER at {e_gate:.1f} dB measured {p_meas:.2f} vs "
         f"recorded {p_rec:.2f} (limit {limit:.2f}) — the 50% cliff "
@@ -102,7 +53,7 @@ def test_per_cliff_gate(sonde_type):
                          ids=[f"{t}{'+' if f > 0 else '-'}20k"
                               for t, f, _, _ in OFFGRID])
 def test_per_offgrid_gate(sonde_type, f_off, e_gate, p_rec):
-    from radiosonde_auto_rx_tpu.tools.per_harness import run_point
+    from radiosonde_auto_rx_jax.tools.per_harness import run_point
     rows = run_point(sonde_type, e_gate, n_frames=50, seed=321,
                      f_off=f_off)
     p_meas = rows[0]["per"]

@@ -4,12 +4,12 @@ import io
 
 import pytest
 
-from radiosonde_auto_rx_tpu.tools import per_harness
+from radiosonde_auto_rx_jax.tools import per_harness
 
 
 def _point(sonde_type, ebno, n_frames):
     rows = per_harness.run_point(sonde_type, ebno, n_frames=n_frames)
-    assert len(rows) == 1 and rows[0]["chain"] == "tpu"
+    assert len(rows) == 1 and rows[0]["chain"] == "jax"
     return rows[0]
 
 
@@ -38,7 +38,7 @@ def test_sweep_csv_cli(tmp_path):
     lines = out.read_text().strip().splitlines()
     assert lines[0].startswith("type,chain,ebno_db")
     assert len(lines) == 3          # header + 2 points
-    assert lines[1].startswith("RS41,tpu,2.0,3,")
+    assert lines[1].startswith("RS41,jax,2.0,3,")
 
 
 def test_lms6_per_cliff():
@@ -56,7 +56,7 @@ def test_ref_overlay_exact_at_high_snr():
     high Eb/N0 — the TX/RX accounting and the C-chain plumbing are both
     airtight before any PER comparison is made."""
     rows = per_harness.run_point("RS41", 18.0, n_frames=4,
-                                 chains=("tpu", "ref"))
+                                 chains=("jax", "ref"))
     assert len(rows) == 2
     for r in rows:
         assert r["frames_rx"] == 4, rows

@@ -7,7 +7,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from radiosonde_auto_rx_tpu.parallel.pp import (
+from radiosonde_auto_rx_jax.parallel.pp import (
     make_stage_mesh, pipeline_parallel, make_pp_demod_pipeline)
 
 
@@ -55,12 +55,12 @@ def test_pp_demod_pipeline_decodes_rs41():
     """DC → IF FIR → demod across 3 stage devices decodes an RS41 frame
     stream end-to-end (stage state streams across microbatches)."""
     _needs(3)
-    from radiosonde_auto_rx_tpu.demod.fsk import FSKConfig
-    from radiosonde_auto_rx_tpu.demod.modulate import gfsk_mod, add_awgn
-    from radiosonde_auto_rx_tpu.models.rs41 import RS41Decoder
-    from radiosonde_auto_rx_tpu.ops.fir import design_lowpass
+    from radiosonde_auto_rx_jax.demod.fsk import FSKConfig
+    from radiosonde_auto_rx_jax.demod.modulate import gfsk_mod, add_awgn
+    from radiosonde_auto_rx_jax.models.rs41 import RS41Decoder
+    from radiosonde_auto_rx_jax.ops.fir import design_lowpass
     from tests.test_rs41 import _mkframe
-    from radiosonde_auto_rx_tpu.models.rs41 import frame_to_bits
+    from radiosonde_auto_rx_jax.models.rs41 import frame_to_bits
 
     cfg = FSKConfig(fs=48000, rs=4800, m=2, p=5, nsym=50,
                     est_min=-5000, est_max=5000, tone_spacing=5000,

@@ -9,7 +9,7 @@ synchronous reads, capture-center tagging, EOF, and retune flushing."""
 import numpy as np
 import pytest
 
-from radiosonde_auto_rx_tpu.station.main import BlockSource, parse_args
+from radiosonde_auto_rx_jax.station.main import BlockSource, parse_args
 
 
 def _write_cs16(path, n_samples, seed=0):
@@ -31,7 +31,7 @@ def _mk(tmp_path, n_blocks=3, extra=100, block_s=0.01, fs=48000):
 def test_replay_blocks_match_sync_reads(tmp_path):
     src, path, block = _mk(tmp_path)
     # synchronous ground truth
-    from radiosonde_auto_rx_tpu.sources.iq_source import IQStreamSource
+    from radiosonde_auto_rx_jax.sources.iq_source import IQStreamSource
     ref = IQStreamSource(open(path, "rb"), fmt="cs16", block_samples=block)
     want = []
     while True:
@@ -85,7 +85,7 @@ def test_retune_restarts_capture_and_retags(tmp_path, monkeypatch):
     path = tmp_path / "sdr.cs16"
     raw = _write_cs16(path, 4 * block)
 
-    import radiosonde_auto_rx_tpu.sources.sdr_wrappers as sw
+    import radiosonde_auto_rx_jax.sources.sdr_wrappers as sw
     calls = []
 
     def fake_cmd(sdr_type, freq, fs_, **kw):

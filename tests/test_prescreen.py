@@ -6,10 +6,10 @@ transparent in front of our equivalent)."""
 import numpy as np
 import pytest
 
-from radiosonde_auto_rx_tpu.demod.modulate import add_awgn, gfsk_mod
-from radiosonde_auto_rx_tpu.detect.scanner import SondeDetector
-from radiosonde_auto_rx_tpu.detect.templates import TEMPLATES
-from radiosonde_auto_rx_tpu.ops.fir import (design_lowpass, fir_filter,
+from radiosonde_auto_rx_jax.demod.modulate import add_awgn, gfsk_mod
+from radiosonde_auto_rx_jax.detect.scanner import SondeDetector
+from radiosonde_auto_rx_jax.detect.templates import TEMPLATES
+from radiosonde_auto_rx_jax.ops.fir import (design_lowpass, fir_filter,
                                             fir_filter_block)
 
 FS = 48000
@@ -37,13 +37,13 @@ def test_fir_filter_block_stride_matches_fir_filter():
 
 
 def test_blocknorm_peaks_match_exact_on_signal():
-    """The TPU peak path (block-granular argmax + exact rescore) must
+    """The blocknorm peak path (block-granular argmax + exact rescore) must
     agree with the exact per-position path on a real header burst."""
-    from radiosonde_auto_rx_tpu.detect.correlator import (
+    from radiosonde_auto_rx_jax.detect.correlator import (
         _correlate_peaks_blocknorm, _correlate_peaks_exact)
-    from radiosonde_auto_rx_tpu.detect.templates import build_template_bank
-    from radiosonde_auto_rx_tpu.ops.fir import fir_filter
-    from radiosonde_auto_rx_tpu.ops.fm import fm_discriminate
+    from radiosonde_auto_rx_jax.detect.templates import build_template_bank
+    from radiosonde_auto_rx_jax.ops.fir import fir_filter
+    from radiosonde_auto_rx_jax.ops.fm import fm_discriminate
     import jax.numpy as jnp
 
     rng = np.random.default_rng(11)

@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from radiosonde_auto_rx_tpu.utils import probe
+from radiosonde_auto_rx_jax.utils import probe
 
 
 def test_probe_disabled_noop():
@@ -35,8 +35,8 @@ def test_dump_npz(tmp_path):
 
 
 def test_demod_probe_internals(rng):
-    from radiosonde_auto_rx_tpu.demod import FSKConfig, fsk_demod_stream
-    from radiosonde_auto_rx_tpu.demod.modulate import gfsk_mod, add_awgn
+    from radiosonde_auto_rx_jax.demod import FSKConfig, fsk_demod_stream
+    from radiosonde_auto_rx_jax.demod.modulate import gfsk_mod, add_awgn
     cfg = FSKConfig(fs=48000, rs=4800, m=2, p=5, nsym=50,
                     est_min=-5000, est_max=5000, tone_spacing=5000,
                     freq_est_type=1)

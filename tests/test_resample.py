@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from radiosonde_auto_rx_tpu.ops.resample import (rational_ratio, resample,
+from radiosonde_auto_rx_jax.ops.resample import (rational_ratio, resample,
                                                  resample_planes)
 
 
@@ -62,8 +62,8 @@ def test_m10_chain_via_resampler(rng):
     resampled down to the 48 kHz capture rate — the reverse of the
     production path — before the production 48k->48.08k resample."""
     import jax.numpy as jnp
-    from radiosonde_auto_rx_tpu.demod import FSKConfig, fsk_demod_stream
-    from radiosonde_auto_rx_tpu.demod.modulate import gfsk_mod, add_awgn
+    from radiosonde_auto_rx_jax.demod import FSKConfig, fsk_demod_stream
+    from radiosonde_auto_rx_jax.demod.modulate import gfsk_mod, add_awgn
     fs0, fs1, rs = 48000, 48080, 9616
     tx = rng.integers(0, 2, 6000).astype(np.uint8)
     iq = add_awgn(gfsk_mod(tx, fs1, rs, 2, 0.0, 9616), 14.0, fs1, rs)

@@ -5,8 +5,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from radiosonde_auto_rx_tpu.parallel.mesh import make_mesh
-from radiosonde_auto_rx_tpu.parallel.routing import (compact_by_type,
+from radiosonde_auto_rx_jax.parallel.mesh import make_mesh
+from radiosonde_auto_rx_jax.parallel.routing import (compact_by_type,
                                                      gather_type_batch,
                                                      route_to_experts)
 
@@ -82,7 +82,7 @@ def test_route_to_experts_all_to_all(rng):
 def test_station_grouping_matches_host_dict(rng):
     """Station.process_capture's per-type grouping (EP compaction
     primitive) must equal the plain host dict grouping."""
-    from radiosonde_auto_rx_tpu.station.station import Station
+    from radiosonde_auto_rx_jax.station.station import Station
     tasks = [(3, "RS41", "d3"), (7, "M20", "d7"), (1, "RS41", "d1"),
              (9, "DFM", "d9"), (5, "M20", "d5")]
     got = Station.group_tasks_by_type(tasks, n_chan=16)

@@ -5,11 +5,11 @@ import numpy as np
 import pytest
 
 import oracle
-from radiosonde_auto_rx_tpu.models.rs41 import (
+from radiosonde_auto_rx_jax.models.rs41 import (
     encode_frame, frame_to_bits, descramble, rs41_ecc, make_calibytes,
     RS41Decoder, HEADER_BYTES, NDATA_LEN, FRAME_LEN)
-from radiosonde_auto_rx_tpu.demod.modulate import gfsk_mod, add_awgn
-from radiosonde_auto_rx_tpu.demod.fsk import FSKConfig, fsk_demod_stream
+from radiosonde_auto_rx_jax.demod.modulate import gfsk_mod, add_awgn
+from radiosonde_auto_rx_jax.demod.fsk import FSKConfig, fsk_demod_stream
 
 RS41_CFG = FSKConfig(fs=48000, rs=4800, m=2, p=5, nsym=300, est_min=-5000,
                      est_max=5000, tone_spacing=5000, freq_est_type=1)
@@ -164,7 +164,7 @@ def test_ecc3_erasure_search_beyond_rs_limit(rng):
     """ECC3: with byte scores marking the corrupted bytes weakest, the
     erasure search recovers a frame with 13 errors in one codeword —
     one past the t=12 RS limit (rs41mod.c 3rd pass :1848-1943)."""
-    from radiosonde_auto_rx_tpu.models.rs41 import RS_MSGPOS
+    from radiosonde_auto_rx_jax.models.rs41 import RS_MSGPOS
     frame = _mkframe()
     bad = _pad518(frame)
     # 13 byte errors all in codeword 0 (even msg offsets)
@@ -185,7 +185,7 @@ def test_ecc3_bit_toggle(rng):
     """ECC3 bit-toggle: 14 single-bit errors in one codeword decode when
     the three weakest scores point at corrupted bytes (2 erasures + 1
     toggled bit)."""
-    from radiosonde_auto_rx_tpu.models.rs41 import RS_MSGPOS
+    from radiosonde_auto_rx_jax.models.rs41 import RS_MSGPOS
     frame = _mkframe()
     bad = _pad518(frame)
     pos = RS_MSGPOS + 2 * np.arange(3, 31, 2)[:14]
@@ -211,7 +211,7 @@ def test_ecc4_known_byte_stuffing(rng):
     """ECC4: a decoder with SondeID/cal history recovers a frame whose
     corruption (14 errors in cw0, several in the ID/cal region) defeats
     ECC2+ECC3 alone (rs41mod.c:1764-1845)."""
-    from radiosonde_auto_rx_tpu.models.rs41 import POS_SONDEID, POS_CALDATA
+    from radiosonde_auto_rx_jax.models.rs41 import POS_SONDEID, POS_CALDATA
     dec = RS41Decoder()
     # prime history: one clean frame (id + calfr 0 collected)
     assert dec.decode_frame(_pad518(_mkframe(0)), NDATA_LEN) is not None

@@ -6,10 +6,10 @@ import os
 import numpy as np
 import pytest
 
-from radiosonde_auto_rx_tpu.models.rs92 import (
+from radiosonde_auto_rx_jax.models.rs92 import (
     RS92Decoder, encode_frame, encode_flight_bits, frame_to_raw_bits,
     make_calibytes, make_test_ephemeris, gps_to_date)
-from radiosonde_auto_rx_tpu.station import gps_ephem
+from radiosonde_auto_rx_jax.station import gps_ephem
 from tests import oracle
 
 LAT, LON, ALT = -34.95, 138.52, 12000.0
@@ -164,7 +164,7 @@ def test_ngp_full_cal_roundtrip(ephs):
 
 def test_ngp_keystream_roundtrip():
     """xcal_key recovers the exact keystream the encoder applied."""
-    from radiosonde_auto_rx_tpu.models.rs92 import xcal_key
+    from radiosonde_auto_rx_jax.models.rs92 import xcal_key
     key = np.arange(16, dtype=np.uint8) * 7 + 3
     cal = make_calibytes(ngp=True, ngp_key=key, freq_khz=1680000)
     assert np.array_equal(xcal_key(cal), key)
@@ -227,7 +227,7 @@ def test_prn32_overflow_corrects_following_slot():
     flipping when the naive correction collides with another tracked
     PRN (rs92mod.c:798-842)."""
     import numpy as np
-    from radiosonde_auto_rx_tpu.models.rs92 import (
+    from radiosonde_auto_rx_jax.models.rs92 import (
         POS_GPS_PRN, POS_GPS_STATUS, unpack_prns)
 
     def build(prn_fields, status):

@@ -8,11 +8,11 @@ import io
 import numpy as np
 import pytest
 
-from radiosonde_auto_rx_tpu.sources import (
+from radiosonde_auto_rx_jax.sources import (
     DemodStatsTracker, IQStreamSource, cs16_to_planes, cu8_to_planes,
     get_power_spectrum, get_sdr_fm_cmd, get_sdr_iq_cmd, get_sdr_name,
     read_ka9q_power_log, read_rtl_power_log)
-from radiosonde_auto_rx_tpu.sources.ka9q import (
+from radiosonde_auto_rx_jax.sources.ka9q import (
     ka9q_pcm_host, ka9q_ssrc, ka9q_tune_cmd)
 
 
@@ -177,7 +177,7 @@ def test_demod_stats_from_stream_dict():
 def test_spyserver_power_cmd(monkeypatch, tmp_path):
     """SpyServer PSD branch builds the reference ss_power command and
     parses the CSV output (reference sdr_wrappers.py:706-767)."""
-    from radiosonde_auto_rx_tpu.sources import sdr_wrappers as sw
+    from radiosonde_auto_rx_jax.sources import sdr_wrappers as sw
     import subprocess as sp
     seen = {}
 
@@ -204,10 +204,10 @@ def test_native_width_planes_value_identical():
     float conversions bit-for-bit (the scales are exact powers of two),
     so shipping native width changes transfer size only."""
     import numpy as np
-    from radiosonde_auto_rx_tpu.sources.iq_source import (
+    from radiosonde_auto_rx_jax.sources.iq_source import (
         cs16_to_planes, cs16_to_planes_raw, cu8_to_planes,
         cu8_to_planes_raw)
-    from radiosonde_auto_rx_tpu.station.station import Station
+    from radiosonde_auto_rx_jax.station.station import Station
 
     rng = np.random.default_rng(0)
     buf16 = rng.integers(-32768, 32768, 4096, np.int16).tobytes()

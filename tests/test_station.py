@@ -7,17 +7,17 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from radiosonde_auto_rx_tpu.station import (
+from radiosonde_auto_rx_jax.station import (
     Station, default_config, read_auto_rx_config, telemetry_filter,
     enrich_telemetry)
-from radiosonde_auto_rx_tpu.station.telemetry import RealtimeVelocityFilter
-from radiosonde_auto_rx_tpu.utils.geometry import (
+from radiosonde_auto_rx_jax.station.telemetry import RealtimeVelocityFilter
+from radiosonde_auto_rx_jax.utils.geometry import (
     GenericTrack, position_info, time_to_landing)
-from radiosonde_auto_rx_tpu.exporters.logfile import (
+from radiosonde_auto_rx_jax.exporters.logfile import (
     TelemetryLogger, telemetry_to_log_line)
-from radiosonde_auto_rx_tpu.exporters.aprs import telemetry_to_aprs_position
-from radiosonde_auto_rx_tpu.exporters.ozimux import OziUploader
-from radiosonde_auto_rx_tpu.exporters.sondehub import reformat_data
+from radiosonde_auto_rx_jax.exporters.aprs import telemetry_to_aprs_position
+from radiosonde_auto_rx_jax.exporters.ozimux import OziUploader
+from radiosonde_auto_rx_jax.exporters.sondehub import reformat_data
 
 
 def _telem(**kw):
@@ -228,10 +228,10 @@ class _CollectExporter:
 
 def test_station_full_cycle():
     """Wideband capture -> Station.process_capture -> exporter."""
-    from radiosonde_auto_rx_tpu.demod.modulate import gfsk_mod
-    from radiosonde_auto_rx_tpu.models.rs41 import (
+    from radiosonde_auto_rx_jax.demod.modulate import gfsk_mod
+    from radiosonde_auto_rx_jax.models.rs41 import (
         encode_frame, frame_to_bits, make_calibytes)
-    from radiosonde_auto_rx_tpu.ops.channelizer import channel_freqs
+    from radiosonde_auto_rx_jax.ops.channelizer import channel_freqs
 
     rng = np.random.default_rng(5)
     cfg = {"capture_rate": 2_400_000, "num_channels": 50,
@@ -270,7 +270,7 @@ def test_station_full_cycle():
 def test_station_imet4_afsk_cycle():
     """iMet-4 (FM-carried Bell-202 AFSK) through scan -> detect -> AFSK
     chain -> telemetry with the synthetic IMET-xxxxxxxx ID."""
-    from radiosonde_auto_rx_tpu.models.imet4 import (
+    from radiosonde_auto_rx_jax.models.imet4 import (
         afsk_modulate, encode_frame_bits, encode_gps_packet,
         encode_eptu_packet)
     rng = np.random.default_rng(1)
@@ -300,9 +300,9 @@ def test_station_imet4_afsk_cycle():
 def test_station_wideband_mk2lms_channel():
     """LMS6-1680/MK2A on a 240 kHz wideband-station channel
     (reference decode.py:661-699): 601/600 resample -> 9616 Bd demod."""
-    from radiosonde_auto_rx_tpu.demod.modulate import gfsk_mod, add_awgn
-    from radiosonde_auto_rx_tpu.models.mk2lms import encode_flight_bits
-    from radiosonde_auto_rx_tpu.ops.resample import resample_planes
+    from radiosonde_auto_rx_jax.demod.modulate import gfsk_mod, add_awgn
+    from radiosonde_auto_rx_jax.models.mk2lms import encode_flight_bits
+    from radiosonde_auto_rx_jax.ops.resample import resample_planes
     import jax.numpy as jnp
     rng = np.random.default_rng(5)
     raw = encode_flight_bits(sid32=7654321, n_frames=4, lat=51.0, lon=7.0,
@@ -340,9 +340,9 @@ def test_station_dfm_true_baud_channel():
     """DFM at its true 2500 Bd through a 48 kHz station channel (the
     chain resamples to 50 kHz; 2400 Bd on 48 kHz would be 4% off)."""
     import jax.numpy as jnp
-    from radiosonde_auto_rx_tpu.demod.modulate import gfsk_mod, add_awgn
-    from radiosonde_auto_rx_tpu.models.dfm import encode_flight_bits
-    from radiosonde_auto_rx_tpu.ops.resample import resample_planes
+    from radiosonde_auto_rx_jax.demod.modulate import gfsk_mod, add_awgn
+    from radiosonde_auto_rx_jax.models.dfm import encode_flight_bits
+    from radiosonde_auto_rx_jax.ops.resample import resample_planes
     raw = encode_flight_bits(sn=21055555, lat=50.1, lon=8.68, n_cycles=4)
     idle = np.tile(np.array([1, 0], np.uint8), 300)
     tx = np.concatenate([idle, raw, idle])
@@ -399,8 +399,8 @@ def test_clean_task_list_reaps_idle():
 def test_station_dfm_full_cycle():
     """Wideband DFM at true 2500 Bd: PSD scan -> detect -> resampled
     chain -> telemetry (completes the detect->chain link for DFM)."""
-    from radiosonde_auto_rx_tpu.demod.modulate import gfsk_mod
-    from radiosonde_auto_rx_tpu.models.dfm import encode_flight_bits
+    from radiosonde_auto_rx_jax.demod.modulate import gfsk_mod
+    from radiosonde_auto_rx_jax.models.dfm import encode_flight_bits
     rng = np.random.default_rng(8)
     raw = encode_flight_bits(sn=21031415, lat=47.37, lon=8.54,
                              n_cycles=3)
@@ -428,7 +428,7 @@ def test_station_dfm_full_cycle():
 def test_aprs_station_beacon_packet():
     """Station beacon packet format (reference aprs.py
     generate_station_object :166-258) + cadence gating."""
-    from radiosonde_auto_rx_tpu.exporters.aprs import (APRSUploader,
+    from radiosonde_auto_rx_jax.exporters.aprs import (APRSUploader,
                                                        generate_station_object)
     pkt = generate_station_object("N0CALL", -34.5, 138.6,
                                   comment="gate v<version>", icon="/r")
@@ -457,7 +457,7 @@ def test_email_nearby_landing_notification():
     descent below it within range triggers ONE nearby-landing e-mail
     (reference email_notification.py:220-300)."""
     import datetime
-    from radiosonde_auto_rx_tpu.exporters.email_notification import \
+    from radiosonde_auto_rx_jax.exporters.email_notification import \
         EmailNotification
     en = EmailNotification(station_position=(-34.0, 138.6, 50.0),
                            launch_notifications=False,

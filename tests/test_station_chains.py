@@ -10,9 +10,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from radiosonde_auto_rx_tpu.demod.modulate import add_awgn, gfsk_mod
-from radiosonde_auto_rx_tpu.ops.resample import resample_planes
-from radiosonde_auto_rx_tpu.station.station import CHAIN_TABLE, Station
+from radiosonde_auto_rx_jax.demod.modulate import add_awgn, gfsk_mod
+from radiosonde_auto_rx_jax.ops.resample import resample_planes
+from radiosonde_auto_rx_jax.station.station import CHAIN_TABLE, Station
 
 
 class _Col:
@@ -34,7 +34,7 @@ def _station():
 
 
 def _meisei_bits():
-    from radiosonde_auto_rx_tpu.models.meisei import (
+    from radiosonde_auto_rx_jax.models.meisei import (
         encode_subframes_ims100, frames_to_raw_bits)
     frames = [encode_subframes_ims100(c, sn=2304123.0, lat=36.1,
                                       lon=140.08, alt=9000.0)
@@ -43,14 +43,14 @@ def _meisei_bits():
 
 
 def _mrz_bits():
-    from radiosonde_auto_rx_tpu.models.mrz import encode_flight_bits
+    from radiosonde_auto_rx_jax.models.mrz import encode_flight_bits
     return (encode_flight_bits(snC=30112, snD=21055, lat=55.75, lon=37.62,
                                alt=7500.0),
             ("MRZ-30112-21055", "lat", 55.75))
 
 
 def _mts01_bits():
-    from radiosonde_auto_rx_tpu.models.mts01 import (encode_frame,
+    from radiosonde_auto_rx_jax.models.mts01 import (encode_frame,
                                                      frame_to_bits)
     bits = np.concatenate([frame_to_bits(encode_frame(
         sid="T7654321", frnr=10 + i, lat=46.05, lon=14.51, alt=2000.0))
@@ -59,7 +59,7 @@ def _mts01_bits():
 
 
 def _imet54_bits():
-    from radiosonde_auto_rx_tpu.models.imet54 import (encode_frame,
+    from radiosonde_auto_rx_jax.models.imet54 import (encode_frame,
                                                       encode_raw_bits)
     bits = np.concatenate([encode_raw_bits(encode_frame(
         sn=54001234, lat=51.5, lon=7.25, alt=3000.0))
@@ -68,7 +68,7 @@ def _imet54_bits():
 
 
 def _wxr_bits():
-    from radiosonde_auto_rx_tpu.models.weathex import (encode_frame,
+    from radiosonde_auto_rx_jax.models.weathex import (encode_frame,
                                                        frame_to_bits)
     gap = np.tile(np.array([1, 0], np.uint8), 30)
     bits = np.concatenate(sum(([frame_to_bits(encode_frame(
@@ -78,7 +78,7 @@ def _wxr_bits():
 
 
 def _dropsonde_bits():
-    from radiosonde_auto_rx_tpu.models.dropsonde import (
+    from radiosonde_auto_rx_jax.models.dropsonde import (
         encode_frame_rd94, frames_to_raw_bits)
     frames = [encode_frame_rd94(frnr=i, lat=25.0, lon=-80.0, alt=4000.0)
               for i in range(3)]
@@ -86,7 +86,7 @@ def _dropsonde_bits():
 
 
 def _lms6_bits():
-    from radiosonde_auto_rx_tpu.models.lms6 import (blocks_to_raw_bits,
+    from radiosonde_auto_rx_jax.models.lms6 import (blocks_to_raw_bits,
                                                     encode_block,
                                                     encode_frame)
     frames = [encode_frame(sn=7123456 & 0xFFFFFF, frnr=100 + i,
@@ -160,7 +160,7 @@ def test_rs92_station_chain_with_ephemeris():
     """RS92 through the station chain: the config-injected ephemeris
     feeds the raw-pseudorange Bancroft navigation
     (reference decode.py:423-446 supplies rs92_ephemeris)."""
-    from radiosonde_auto_rx_tpu.models.rs92 import (encode_flight_bits,
+    from radiosonde_auto_rx_jax.models.rs92 import (encode_flight_bits,
                                                     make_test_ephemeris)
     import jax.numpy as jnp
     ephs = make_test_ephemeris()

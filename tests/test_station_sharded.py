@@ -9,9 +9,9 @@ import numpy as np
 import jax
 import pytest
 
-from radiosonde_auto_rx_tpu.demod.modulate import gfsk_mod
-from radiosonde_auto_rx_tpu.ops.channelizer import channel_freqs
-from radiosonde_auto_rx_tpu.station.station import Station
+from radiosonde_auto_rx_jax.demod.modulate import gfsk_mod
+from radiosonde_auto_rx_jax.ops.channelizer import channel_freqs
+from radiosonde_auto_rx_jax.station.station import Station
 from station_fixture import (dfm_bits as _dfm_bits,
                              m10_bits as _m10_bits,
                              m20_bits as _m20_bits,
@@ -129,7 +129,7 @@ def test_dispatch_collect_pipelined_equals_sync(capture_set):
 def test_process_captures_single_device_mesh(capture_set):
     """A 1-device mesh is the production single-chip program: same
     telemetry as the legacy per-block path."""
-    from radiosonde_auto_rx_tpu.parallel.mesh import make_mesh
+    from radiosonde_auto_rx_jax.parallel.mesh import make_mesh
     col = _Collect()
     st = Station(_cfg(), exporters=[col],
                  mesh=make_mesh(n_ch=1, n_t=1,
@@ -149,3 +149,27 @@ def test_process_captures_no_mesh_fallback(capture_set):
     st = Station({**_cfg(), "use_mesh": False}, exporters=[col])
     got = st.process_captures([capture_set[0]], [CENTERS[0]])
     assert any(t["type"] == "RS41" for t in got)
+
+
+@pytest.mark.parametrize("wire", ["cs16", "complex"])
+def test_wide_batch_placed_per_shard(capture_set, wire):
+    """The mesh batch goes straight onto its sharding (one capture per
+    ch shard here, never staged whole on one device) with the same
+    values as the per-block host conversion."""
+    from jax.sharding import PartitionSpec as P
+    st = Station(_cfg(), exporters=[])
+    n = st.mesh.shape["ch"]
+    part = capture_set[:, :, :48000]
+    if wire == "cs16":
+        blocks = [np.round(b * 16000).astype(np.int16) for b in part]
+    else:
+        blocks = [b[0] + 1j * b[1] for b in part]
+    sh = st._sharded_step(st.profile()).sharding(P("ch", None, "t"))
+    wide = st._wide_batch(blocks, n, sh)
+    shards = wide.addressable_shards
+    assert len({s.device for s in shards}) == n
+    assert all(s.data.shape == (1, 2, 48000) for s in shards)
+    ref = np.zeros((n, 2, 48000), np.float32)
+    ref[:len(blocks)] = [np.asarray(st._wide_planes(b)) for b in blocks]
+    np.testing.assert_array_equal(np.asarray(wide), ref)
+    st.close()

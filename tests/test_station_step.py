@@ -8,12 +8,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from radiosonde_auto_rx_tpu.parallel.mesh import make_mesh
-from radiosonde_auto_rx_tpu.parallel.station_step import (
+from radiosonde_auto_rx_jax.parallel.mesh import make_mesh
+from radiosonde_auto_rx_jax.parallel.station_step import (
     EXPERT_TYPES, ShardedStationStep)
 
-from radiosonde_auto_rx_tpu.demod.fsk import fsk_demod_stream
-from radiosonde_auto_rx_tpu.models import get_model
+from radiosonde_auto_rx_jax.demod.fsk import fsk_demod_stream
+from radiosonde_auto_rx_jax.models import get_model
 
 from station_fixture import (
     N_CHAN, FS_WIDE, B, T_WIDE, RS41_CAP, RS41_CH, M20_CAP, M20_CH,
@@ -70,7 +70,7 @@ def test_analyze_detects_both_sondes(steps, analyzed):
         # the WXR preamble template — the station resolves lookalikes
         # with the full detector, exactly like the reference's headcmp
         # confirmation, dft_detect.c:866-901)
-        from radiosonde_auto_rx_tpu.detect.prescreen import MARGIN
+        from radiosonde_auto_rx_jax.detect.prescreen import MARGIN
         assert r[c_m20, names.index("M10")] >= MARGIN
         exp, _ = s8.expert_assignment(r)
         assert EXPERT_TYPES[exp[c_rs41]] == "RS41"
@@ -82,7 +82,7 @@ def test_confirm_pass_matches_single_device_detector(steps, analyzed):
     M10-vs-M20 frame-byte disambiguation on the M20 channel whose idle
     cross-fires the WXR template (round-3 verdict #3; reference resolves
     the same lookalikes via headcmp + frm_M10, dft_detect.c:866-965)."""
-    from radiosonde_auto_rx_tpu.detect.scanner import SondeDetector
+    from radiosonde_auto_rx_jax.detect.scanner import SondeDetector
     s1, s8 = steps
     (ch1, _, _), (ch8, _, _) = analyzed
     cands = [RS41_CAP * N_CHAN + RS41_CH, M20_CAP * N_CHAN + M20_CH,
@@ -126,7 +126,7 @@ def test_confirm_pass_matches_single_device_detector(steps, analyzed):
     # expert).  The production path routes confirm+decide_confirmed
     # decisions instead (asserted == single-device above), so boundary
     # channels neither vanish nor burn a wrong expert's capacity slot.
-    from radiosonde_auto_rx_tpu.detect.prescreen import MARGIN
+    from radiosonde_auto_rx_jax.detect.prescreen import MARGIN
     _, _, r8 = analyzed[1]
     names = [s.name for s in s8.prescreen.spec_order]
     exp_thr, _ = s8.expert_assignment(np.asarray(r8))
@@ -251,8 +251,8 @@ def test_route_demod_bf16_planes_pad_experts():
     """route_demod must trace with bf16 channel planes on a mesh whose
     ch size does not divide the expert count (pad experts in play): the
     pad/empty switch branches must emit f32 ebno like the real demod
-    branches (round-4 review finding — on TPU the channelizer ships
-    bf16 planes and an 8-way mesh pads 12 experts to 16; a bf16/f32
+    branches (round-4 review finding — with RSX_CHANNELIZER_DTYPE=bfloat16
+    the channelizer ships bf16 planes and an 8-way mesh pads 12 experts to 16; a bf16/f32
     branch-type mismatch kills lax.switch at trace time)."""
     mesh8 = make_mesh(n_ch=8, n_t=1)
     step = ShardedStationStep(mesh8, n_chan=2, capacity=1,

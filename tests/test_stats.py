@@ -2,12 +2,12 @@
 
 import numpy as np
 
-from radiosonde_auto_rx_tpu.utils import stats
+from radiosonde_auto_rx_jax.utils import stats
 
 
 def _write_log(path, serial, lat, lon, alt, snr=20.0, n=5):
     """Minimal per-sonde CSV in the TelemetryLogger column layout."""
-    from radiosonde_auto_rx_tpu.exporters.logfile import (
+    from radiosonde_auto_rx_jax.exporters.logfile import (
         LOG_HEADER, telemetry_to_log_line)
     import datetime
     lines = [LOG_HEADER]
@@ -63,7 +63,7 @@ def test_snr_map_range_gates(tmp_path):
 def test_rs41_subframe_sidecar(tmp_path):
     """TelemetryLogger writes the 51x16 cal subframe once as binary
     (reference logger.py:280)."""
-    from radiosonde_auto_rx_tpu.exporters.logfile import TelemetryLogger
+    from radiosonde_auto_rx_jax.exporters.logfile import TelemetryLogger
     lg = TelemetryLogger(log_directory=str(tmp_path), start_thread=False,
                          save_cal_data=True)
     cal = bytes(range(256)) * 3 + bytes(48)      # 816 = 51*16
@@ -77,7 +77,7 @@ def test_rs41_subframe_sidecar(tmp_path):
 
 
 def test_version_check_offline():
-    from radiosonde_auto_rx_tpu.utils.version import (check_autorx_version,
+    from radiosonde_auto_rx_jax.utils.version import (check_autorx_version,
                                                       version_startup_check)
     assert version_startup_check()
     r = check_autorx_version(timeout=0.2)

@@ -13,9 +13,9 @@ import numpy as np
 import jax
 import pytest
 
-from radiosonde_auto_rx_tpu.demod.modulate import gfsk_mod
-from radiosonde_auto_rx_tpu.parallel.mesh import make_mesh
-from radiosonde_auto_rx_tpu.station.station import Station
+from radiosonde_auto_rx_jax.demod.modulate import gfsk_mod
+from radiosonde_auto_rx_jax.parallel.mesh import make_mesh
+from radiosonde_auto_rx_jax.station.station import Station
 
 from station_fixture import dfm_bits, rs41_bits, taper
 from test_offgrid import (CENTER, FREQS, FS_WIDE, N_CHAN, T_WIDE,

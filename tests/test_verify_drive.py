@@ -1,8 +1,8 @@
 """Library-surface drive (verify skill recipe): demod a synthesized GFSK
 signal through the public API and bound BER; edge cases stay finite."""
 import numpy as np
-from radiosonde_auto_rx_tpu.demod import FSKConfig, fsk_demod_stream
-from radiosonde_auto_rx_tpu.demod.modulate import gfsk_mod, add_awgn
+from radiosonde_auto_rx_jax.demod import FSKConfig, fsk_demod_stream
+from radiosonde_auto_rx_jax.demod.modulate import gfsk_mod, add_awgn
 
 
 def _ber(tx, bits, skip=600):

@@ -4,7 +4,7 @@ weathex301d."""
 import numpy as np
 import pytest
 
-from radiosonde_auto_rx_tpu.models.weathex import (
+from radiosonde_auto_rx_jax.models.weathex import (
     WeathexDecoder, WeathexPN9Decoder, encode_frame, frame_to_bits, xor8sum)
 from tests import oracle
 

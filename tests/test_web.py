@@ -8,11 +8,11 @@ import urllib.request
 
 import pytest
 
-from radiosonde_auto_rx_tpu.exporters.logfile import TelemetryLogger
-from radiosonde_auto_rx_tpu.station.udplistener import UDPListener
-from radiosonde_auto_rx_tpu.station.emulation import replay_log_file
-from radiosonde_auto_rx_tpu.web import WebExporter, WebServer
-from radiosonde_auto_rx_tpu.web.log_files import (
+from radiosonde_auto_rx_jax.exporters.logfile import TelemetryLogger
+from radiosonde_auto_rx_jax.station.udplistener import UDPListener
+from radiosonde_auto_rx_jax.station.emulation import replay_log_file
+from radiosonde_auto_rx_jax.web import WebExporter, WebServer
+from radiosonde_auto_rx_jax.web.log_files import (
     calculate_skewt_data, list_log_files, log_file_to_kml, read_log_file,
     zip_log_files)
 
@@ -88,7 +88,7 @@ def test_web_server_routes():
         kml = urllib.request.urlopen(base + "/rs.kml", timeout=5).read()
         assert b"<kml" in kml
         html = urllib.request.urlopen(base + "/", timeout=5).read()
-        assert b"radiosonde_auto_rx_tpu" in html
+        assert b"radiosonde_auto_rx_jax" in html
     finally:
         srv.close()
 
@@ -127,7 +127,7 @@ def test_replay(logdir):
 # ---- extended routes + control endpoints ---------------------------------
 
 def _spin_server(tmp_path, station=None, control=False, password="none"):
-    from radiosonde_auto_rx_tpu.web.server import WebExporter, WebServer
+    from radiosonde_auto_rx_jax.web.server import WebExporter, WebServer
     cfg = {"log_directory": str(tmp_path), "web_control": control,
            "web_password": password}
     web = WebServer(station=station, web_exporter=WebExporter(),
@@ -160,7 +160,7 @@ def _post(port, path, data):
 
 
 def _make_log(tmp_path, serial="W9988776"):
-    from radiosonde_auto_rx_tpu.exporters.logfile import (
+    from radiosonde_auto_rx_jax.exporters.logfile import (
         LOG_HEADER, telemetry_to_log_line)
     lines = [LOG_HEADER]
     for i in range(10):
@@ -266,7 +266,7 @@ def test_control_requires_password_set(tmp_path):
 def test_log_lines_route(tmp_path):
     import json
     import logging
-    from radiosonde_auto_rx_tpu.web.server import (WebExporter, WebHandler,
+    from radiosonde_auto_rx_jax.web.server import (WebExporter, WebHandler,
                                                    WebServer)
     wh = WebHandler(max_lines=10)
     lg = logging.getLogger("weblinetest")
@@ -326,7 +326,7 @@ def test_track_history_route(tmp_path):
 def test_sse_stream(tmp_path):
     """The /events SSE stream pushes telemetry, log lines and status."""
     import logging
-    from radiosonde_auto_rx_tpu.web.server import WebHandler
+    from radiosonde_auto_rx_jax.web.server import WebHandler
     wh = WebHandler()
     lg = logging.getLogger("ssetest")
     lg.addHandler(wh)
